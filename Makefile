@@ -5,10 +5,8 @@ PY ?= python
 
 FINAL_STATE_FILE ?= ./final_state.dat
 AV_VELS_FILE ?= ./av_vels.dat
-REF_FINAL_STATE_FILE ?= /root/reference/check/128x128.final_state.dat
-REF_AV_VELS_FILE ?= /root/reference/check/128x128.av_vels.dat
 
-.PHONY: all native test test-full check bench validate fullscenes mosaic clean
+.PHONY: all native test test-full check bench smoke validate clean
 
 all: native
 
@@ -16,38 +14,34 @@ all: native
 native:
 	$(PY) setup.py build_ext --inplace
 
-# Default fast profile (~8 min): pyproject addopts deselect `slow`.
+# Default fast profile: pyproject addopts deselect `slow`. The tests
+# run on the CPU with 8 virtual devices (tests/conftest.py).
 test:
-	$(PY) -m pytest tests/ -x -q
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -x -q
 
-# Full suite including the slow interpret-mode trajectory tests (~23 min).
+# Full suite including the slow tests.
 test-full:
-	$(PY) -m pytest tests/ -x -q -m ""
+	JAX_PLATFORMS=cpu $(PY) -m pytest tests/ -x -q -m ""
 
+# The reference's `make check`: pass REF_AV_VELS_FILE and
+# REF_FINAL_STATE_FILE (its check/ golden files) on the command line.
 check:
 	$(PY) -m lbm_tpu.check --ref-av-vels-file=$(REF_AV_VELS_FILE) \
 	    --ref-final-state-file=$(REF_FINAL_STATE_FILE) \
 	    --av-vels-file=$(AV_VELS_FILE) --final-state-file=$(FINAL_STATE_FILE)
 
+# GPU only: exits 1 without one.
 bench:
 	$(PY) bench.py
 
-# Run every official scene through the CLI and gate with the
-# reference's own checker (emits docs/artifacts/validate_scenes.json).
+# GPU only: the main path on the card, gated (chip_smoke.py).
+smoke:
+	$(PY) chip_smoke.py
+
+# The golden-bearing scenes (scenes/) through the CLI, gated against
+# goldens/ with check.py's formula (writes validate_scenes.json).
 validate:
 	$(PY) scripts/validate_scenes.py
-
-# Cross-kernel acceptance for the four goldenless official scenes
-# (production Pallas vs portable jnp over the FULL scene length; emits
-# docs/artifacts/full_scenes.json). TPU-intended — the jnp legs take
-# hours on CPU.
-fullscenes:
-	$(PY) scripts/full_scenes.py
-
-# Prove the sharded pallas program under real Mosaic with a 1-device
-# mesh (emits docs/artifacts/mosaic_shardmap.json).
-mosaic:
-	$(PY) scripts/tpu_mosaic_check.py
 
 clean:
 	rm -rf build lbm_tpu/*.so

@@ -1,18 +1,18 @@
-"""lbm_tpu — a TPU-native D2Q9 BGK lattice-Boltzmann framework.
+"""lbm_tpu — a D2Q9 BGK lattice-Boltzmann framework on JAX/XLA.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of the reference
-C/MPI solver (georgeherbert/lattice-boltzmann, mounted at /root/reference):
+A from-scratch JAX rebuild of the capabilities of the reference C/MPI
+solver (georgeherbert/lattice-boltzmann):
 
 - same scene API: ``.params`` files + obstacle ``.dat`` masks in,
   ``av_vels.dat`` / ``final_state.dat`` + Reynolds number out
   (reference: d2q9-bgk.c:505-654, 698-752);
 - the per-timestep accelerate-flow -> fused pull-streaming / bounce-back /
   BGK-collision / average-velocity pipeline (reference: d2q9-bgk.c:235-339)
-  runs as a jitted ``lax.fori_loop`` with no host round-trips, with a fused
-  Pallas stencil kernel on TPU;
+  runs as a jitted ``lax.fori_loop`` over one XLA-fused step with no host
+  round-trips;
 - the reference's MPI row decomposition + halo exchange
   (d2q9-bgk.c:341-393, 483-503) becomes a 1-D ``jax.sharding.Mesh`` with
-  ``shard_map`` and one-row halo ``ppermute`` over ICI.
+  ``shard_map`` and one-row halo ``ppermute`` (NCCL over NVLink on GPUs).
 """
 
 __version__ = "0.1.0"

@@ -204,6 +204,30 @@ def compare_golden_arrays(
     )
 
 
+def compare_golden_npz(
+    av_vels_file: str | Path,
+    final_state_file: str | Path,
+    golden_npz: str | Path,
+    tolerance: float = 1.0,
+) -> GoldenResult:
+    """check.py's comparison against a repo-owned float64 golden
+    (``goldens/*.f64.npz``): av_vels against its ``av_vels``, and
+    final_state pressure (column 5, the column check.py compares)
+    against its row-major ``pressure`` field."""
+    with np.load(golden_npz) as z:
+        ref_av, ref_p = z["av_vels"], z["pressure"]
+    av_sim = load_av_vels(av_vels_file)
+    fs_sim = load_final_state(final_state_file)
+    if av_sim.size != ref_av.size:
+        raise ValueError("Different number of steps in av_vels files")
+    if fs_sim.shape[0] != ref_p.size:
+        raise ValueError("Different number of cells in final_state files")
+    return GoldenResult(
+        av_vels=_diff(ref_av, av_sim, tolerance),
+        final_state=_diff(ref_p, fs_sim[:, 2], tolerance),
+    )
+
+
 def compare_golden(
     av_vels_file: str | Path,
     final_state_file: str | Path,

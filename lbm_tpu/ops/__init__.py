@@ -1,6 +1,5 @@
 """Compute ops: the accelerate-flow forcing and the fused
-collide-stream kernel, in a portable jnp form (:mod:`lbm_tpu.ops.reference`)
-and a fused Pallas TPU form (:mod:`lbm_tpu.ops.pallas_fused`).
+collide-stream step, in plain jnp left to XLA (:mod:`lbm_tpu.ops.reference`).
 """
 
 from lbm_tpu.ops.reference import (

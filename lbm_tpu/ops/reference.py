@@ -1,10 +1,11 @@
-"""Portable jnp implementation of the per-timestep ops.
+"""The XLA step: the per-timestep ops in plain ``jax.numpy``/``lax``.
 
-This is the semantic reference for the Pallas TPU kernel and the sharded
-path: pull-streaming + bounce-back + BGK collision + the per-step velocity
-reduction, fused in one pass exactly like the reference's ``timestep``
-(d2q9-bgk.c:268-339), preceded by ``accelerate_flow`` forcing on global row
-ny-2 (d2q9-bgk.c:235-266; unambiguous serial form go/d2q9-bgk.go:127-143).
+This is the solver's one kernel, left to XLA's fusion, and the semantic
+reference for the sharded path: pull-streaming + bounce-back + BGK
+collision + the per-step velocity reduction, fused in one pass exactly
+like the reference's ``timestep`` (d2q9-bgk.c:268-339), preceded by
+``accelerate_flow`` forcing on global row ny-2 (d2q9-bgk.c:235-266;
+unambiguous serial form go/d2q9-bgk.go:127-143).
 
 Two streaming variants share the BGK math:
 
@@ -15,9 +16,8 @@ Two streaming variants share the BGK math:
   ``shard_map``, mirroring the reference's +2-halo-row local grids,
   d2q9-bgk.c:546).
 
-Everything is float32 with the reference's operation association so f32
-trajectories track the golden data to ~1e-4 %, far inside check.py's 1 %
-tolerance.
+Float32 trajectories track the float64 golden data far inside check.py's
+1 % tolerance; float64 reproduces it to ~1e-10 %.
 """
 
 from __future__ import annotations
@@ -33,31 +33,17 @@ from lbm_tpu.state import D2Q9
 
 def _paired_eq_enabled() -> bool:
     """Opposite-speed paired equilibrium (feq± = even ± odd): ~20% fewer
-    VPU ops per cell than the reference's per-speed expansion, at the
-    cost of a different (but algebraically equal) f32 association.
-    Measured +5-10% GLUPS across every grid (docs/PERF.md v6), so it is
-    the f32 default; LBM_PAIRED_EQ=0 restores the reference's exact
-    term-by-term association. Float64 validation mode always keeps the
+    arithmetic ops per cell than the reference's per-speed expansion, at
+    the cost of a different (but algebraically equal) f32 association.
+    Off by default: on the H100 the step is bound by memory traffic, not
+    arithmetic, and the paired association drifts further from float64
+    (16384x1024 x 2000 steps: 0.39% max av_vels diff against 0.19% for
+    the reference association, over the 0.3% drift budget —
+    docs/PERF.md). LBM_PAIRED_EQ=1 opts in. Float64 always keeps the
     reference ordering (the ~1e-10% golden-match claim depends on it).
-    Read at trace time; both the jnp and Pallas paths share this
-    function, so sharded/unsharded and pallas/jnp equivalence is
-    unaffected by the setting."""
-    return os.environ.get("LBM_PAIRED_EQ", "1") not in ("0", "", "false")
+    Read at trace time, so sharded and unsharded runs agree."""
+    return os.environ.get("LBM_PAIRED_EQ", "0") not in ("0", "", "false")
 
-
-def _omega_eq_enabled() -> bool:
-    """Omega-absorbed relaxation: fold omega into the equilibrium weights
-    at trace time (feqw = omega*feq term by term via scaled w constants)
-    so the BGK relax becomes one fma ``new = s*(1-omega) + feqw`` instead
-    of ``s + omega*(feq - s)``. Algebraically identical to
-    d2q9-bgk.c:325-333 (a further f32 reassociation on top of the paired
-    form), and 9 fewer nominal VPU ops per cell — but MEASURED SLOWER on
-    the chip everywhere (2000-iter marginals: 1024² 16.36 vs 17.12,
-    16384x1024 22.33 vs 24.13, 131072x128 26.41 vs 27.08 — the
-    non-absorbed form evidently schedules into better fma chains), so
-    the default is OFF; LBM_OMEGA_EQ=1 opts in. Applies only to the
-    paired f32 form. See docs/PERF.md v6.5."""
-    return os.environ.get("LBM_OMEGA_EQ", "0") not in ("0", "", "false")
 
 def _accel_delta(w1, w2) -> jnp.ndarray:
     """Per-speed forcing deltas: +w1/-w1 on axis speeds 1/3, +w2 on
@@ -147,7 +133,6 @@ def _bgk_update_planes(
     u_sq = u_x * u_x + u_y * u_y
 
     paired = _paired_eq_enabled() and s[0].dtype == jnp.float32
-    omega_abs = paired and _omega_eq_enabled()
     if paired:
         # Paired form: for opposite speeds (k, k̄) the equilibrium splits
         # into even/odd parts, feq_k = E + O and feq_k̄ = E - O with
@@ -156,14 +141,9 @@ def _bgk_update_planes(
         # twice. Algebraically identical to d2q9-bgk.c:325-333, with a
         # different f32 association (drift stays far inside the 1%
         # golden tolerance; see docs/PERF.md).
-        #
-        # Omega absorption scales the weight CONSTANTS by omega at trace
-        # time so feq comes out pre-multiplied and the relax below is a
-        # single fma per speed.
-        scale = np.float32(omega) if omega_abs else d(1)
         base = one - u_sq * two_c_sq_r
-        wrho_a = (w_axis * scale) * rho
-        wrho_d = (w_diag * scale) * rho
+        wrho_a = w_axis * rho
+        wrho_d = w_diag * rho
         odd_a = c_sq_r * wrho_a
         odd_d = c_sq_r * wrho_d
 
@@ -173,7 +153,7 @@ def _bgk_update_planes(
             return even + odd, even - odd
 
         feq = [None] * D2Q9.Q
-        feq[0] = (weights[0] * scale) * rho * base
+        feq[0] = weights[0] * rho * base
         feq[1], feq[3] = pair(wrho_a, odd_a, u_x)
         feq[2], feq[4] = pair(wrho_a, odd_a, u_y)
         feq[5], feq[7] = pair(wrho_d, odd_d, u_x + u_y)
@@ -209,17 +189,9 @@ def _bgk_update_planes(
                 )
             )
 
-    if omega_abs:
-        # f32-only by the omega_abs gate above; keeping the computation
-        # inside the branch makes that dtype contract explicit (the
-        # float64 validation path never touches a float32 constant).
-        one_m_omega = np.float32(1.0) - np.float32(omega)
     new_planes = []
     for k in range(D2Q9.Q):
-        if omega_abs:
-            relaxed = s[k] * one_m_omega + feq[k]
-        else:
-            relaxed = s[k] + omega * (feq[k] - s[k])
+        relaxed = s[k] + omega * (feq[k] - s[k])
         bounced = s[int(D2Q9.OPP[k])]
         new_planes.append(jnp.where(obstacles, bounced, relaxed))
 

@@ -1,5 +1,5 @@
-"""Distributed runtime: 1-D row decomposition over a TPU mesh with
-ppermute halo exchange — the TPU-native equivalent of the reference's MPI
+"""Distributed runtime: 1-D row decomposition over a device mesh with
+ppermute halo exchange — the equivalent of the reference's MPI
 layer (allocate_rows d2q9-bgk.c:483-503, halo_exchange d2q9-bgk.c:341-393,
 collate d2q9-bgk.c:395-447).
 """

@@ -2,20 +2,21 @@
 
 The reference's observability was gettimeofday phase timers
 (d2q9-bgk.c:174-226), gprof flat profiles (profiling/), and Intel Advisor
-rooflines (roofline/). The TPU equivalents here:
+rooflines (roofline/). The equivalents here:
 
 - :class:`PhaseTimers` — the same 4-phase init/compute/collate/total
   breakdown;
 - :func:`trace` — a jax.profiler trace context manager (view in
-  TensorBoard / xprof);
-- :func:`roofline_report` — GLUPS, effective HBM bandwidth and FLOP/s
-  for a measured run against the chip's peaks (the Advisor-roofline
-  analogue). The fused step's arithmetic intensity under this model is
-  FLOPS_PER_CELL / BYTES_PER_CELL_F32_MASK ≈ 1.7 FLOP/B — higher than
-  the reference's 0.43–0.53 (report_mpi/report.tex:158) because TPU
-  flops count the divide/sqrt expansions, but equally far below the
-  ridge: the kernel is memory-bound on every listed chip (docs/PERF.md
-  "Cost model" uses these exact constants).
+  TensorBoard / xprof, or summarise with scripts/trace_report.py);
+- :func:`roofline_report` — GLUPS, effective memory bandwidth and FLOP/s
+  for a measured run against the device's published peaks (the
+  Advisor-roofline analogue). The fused step's arithmetic intensity
+  under this model is FLOPS_PER_CELL / BYTES_PER_CELL_F32_MASK ≈ 1.7
+  FLOP/B — higher than the reference's 0.43–0.53
+  (report_mpi/report.tex:158) because these flops count the
+  divide/sqrt expansions, but far below the ridge of any table entry:
+  the step is memory-bound (docs/PERF.md "Cost model" uses these exact
+  constants).
 """
 
 from __future__ import annotations
@@ -29,21 +30,33 @@ import jax
 # Per-cell cost model of the fused step (d2q9-bgk.c:284-335): 9 reads +
 # 9 writes of f32 distributions + the obstacle mask byte(s), ~130 flops
 # (incl. divides/sqrt expansions), 1 sqrt. docs/PERF.md derives its
-# roofline ceilings from the same constants (v5e: 819 GB/s / 76 B/cell
-# ≈ 10.8 GLUPS).
+# roofline ceilings from the same constants.
 BYTES_PER_CELL_F32_MASK = (9 + 9) * 4 + 4
 FLOPS_PER_CELL = 130
 
-# Peak specs per chip generation: HBM GB/s and the chip's peak dense
-# TFLOP/s envelope (the bf16 MXU rate — docs/PERF.md's ridge uses it:
-# v5e 197e3 / 819 ≈ 240 FLOP/B). The VPU-only LBM kernel cannot reach
-# this envelope, so flops_utilisation reads low by construction; it
-# exists to show how memory-bound the kernel is, not as a VPU target.
-CHIP_PEAKS = {
-    "v5e": {"hbm_gbps": 819, "tflops_peak": 197.0},
-    "v5p": {"hbm_gbps": 2765, "tflops_peak": 459.0},
-    "v4": {"hbm_gbps": 1228, "tflops_peak": 275.0},
+# Published peaks, keyed by ``jax.devices()[0].device_kind``: memory
+# bandwidth in GB/s and the float32 rate outside the tensor cores (the
+# step has no matrix products). A device that is not listed is an error,
+# never a default.
+DEVICE_PEAKS = {
+    "NVIDIA H100 80GB HBM3": {
+        "hbm_gbps": 3350,
+        "tflops_f32": 67.0,
+        "source": "NVIDIA H100 Tensor Core GPU datasheet, SXM5 part: "
+                  "3.35 TB/s HBM3, 67 TFLOP/s FP32",
+    },
 }
+
+
+def device_peaks(device_kind: str) -> dict:
+    """The :data:`DEVICE_PEAKS` entry for ``device_kind``."""
+    try:
+        return DEVICE_PEAKS[device_kind]
+    except KeyError:
+        raise ValueError(
+            f"no published peaks for device {device_kind!r}; known: "
+            f"{sorted(DEVICE_PEAKS)}"
+        ) from None
 
 
 @dataclasses.dataclass
@@ -87,50 +100,25 @@ def trace(logdir: str):
         jax.profiler.stop_trace()
 
 
-def roofline_report(
-    nx: int, ny: int, iters: int, seconds: float, chip: str = "v5e",
-    steps_per_pass: int = 1,
-) -> dict:
-    """Throughput vs the chip's bandwidth/compute roofs.
-
-    ``steps_per_pass``: steps the measured kernel advances per HBM pass
-    (pallas_fused._kernel_fused: physical traffic per step is
-    BYTES_PER_CELL / depth, so the bandwidth ceiling scales up by
-    depth). Pass the value the run actually used — the automatic
-    schedule is shape-aware: chip-resident states auto-select the
-    VMEM-resident kernel at G=100 steps per pass
-    (pallas_resident.resident_gsteps), blocked runs take depth 2 under
-    ~50 MB per lattice buffer, 8 for large lanes<=128 layouts and 4
-    otherwise (pallas_fused._depth_preference). A wrong value
-    over/under-reports HBM utilisation proportionally —
-    scripts/plot_roofline.py mirrors the selection logic instead of
-    hardcoding a tier.
-    """
+def roofline_report(nx: int, ny: int, iters: int, seconds: float,
+                    device_kind: str) -> dict:
+    """Throughput of a measured run against the device's published
+    roofs (one HBM pass per step)."""
+    peaks = device_peaks(device_kind)
     cells = nx * ny * iters
     glups = cells / seconds / 1e9
-    bytes_per_step = BYTES_PER_CELL_F32_MASK / steps_per_pass
-    gbps = cells * bytes_per_step / seconds / 1e9
+    gbps = cells * BYTES_PER_CELL_F32_MASK / seconds / 1e9
     gflops = cells * FLOPS_PER_CELL / seconds / 1e9
-    try:
-        peaks = CHIP_PEAKS[chip]
-    except KeyError:
-        # A silent v5e fallback would misstate utilisation for other
-        # chips by their real bandwidth ratio (review finding).
-        raise ValueError(
-            f"unknown chip {chip!r}; known: {sorted(CHIP_PEAKS)}"
-        ) from None
-    ai = FLOPS_PER_CELL / bytes_per_step
+    ai = FLOPS_PER_CELL / BYTES_PER_CELL_F32_MASK
+    ridge = peaks["tflops_f32"] * 1e3 / peaks["hbm_gbps"]
     return {
         "glups": glups,
         "effective_gbps": gbps,
         "effective_gflops": gflops,
         "hbm_utilisation": gbps / peaks["hbm_gbps"],
-        "flops_utilisation": gflops / (peaks["tflops_peak"] * 1e3),
+        "flops_utilisation": gflops / (peaks["tflops_f32"] * 1e3),
         "arithmetic_intensity": ai,
-        # Bandwidth speed-of-light for this kernel on this chip
-        # (docs/PERF.md: v5e 819/76 ≈ 10.8 GLUPS unfused, 21.6 fused).
-        "ceiling_glups": peaks["hbm_gbps"] / bytes_per_step,
-        "bound": "memory"
-        if ai < peaks["tflops_peak"] * 1e3 / peaks["hbm_gbps"]
-        else "compute",
+        # Bandwidth speed-of-light for this step on this device.
+        "ceiling_glups": peaks["hbm_gbps"] / BYTES_PER_CELL_F32_MASK,
+        "bound": "memory" if ai < ridge else "compute",
     }

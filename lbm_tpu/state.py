@@ -1,12 +1,12 @@
 """Lattice constants and state initialisation.
 
-State layout is planar SoA: one ``(9, ny, nx)`` float32 array — the TPU
+State layout is planar SoA: one ``(9, ny, nx)`` float32 array — the
 analogue of the reference's nine separately-allocated speed planes
-(``t_speed``, d2q9-bgk.c:90-100). ``nx`` sits on the 128-wide lane axis
+(``t_speed``, d2q9-bgk.c:90-100). ``nx`` is the contiguous minor axis
 (every shipped grid has nx a multiple of 128, the same alignment contract
 the reference exploited with ``__assume(params.nx % 16 == 0)``,
-d2q9-bgk.c:291); ``ny`` sits on sublanes; the 9 speeds are the major axis
-so each plane is a contiguous, tileable 2-D image.
+d2q9-bgk.c:291), so consecutive GPU threads read consecutive cells; the 9
+speeds are the major axis so each plane is a contiguous 2-D image.
 
 Speed numbering (d2q9-bgk.c:7-13)::
 

@@ -16,16 +16,15 @@ def print_scalings(results):
     for r in results:
         if "error" in r:
             continue
-        key = (r["grid"], r["kernel"], r.get("backend", "?"),
-               r.get("mode", "hardware"))
+        key = (r["grid"], r.get("backend", "?"), r.get("mode", "hardware"))
         # Per-step time: --append-merged files can hold rows measured
         # at different --iters for different device counts.
         by_grid[key][r["devices"]] = r["seconds"] / max(r.get("iters", 1), 1)
-    for (grid, kernel, backend, mode), times in sorted(by_grid.items()):
+    for (grid, backend, mode), times in sorted(by_grid.items()):
         if 1 not in times:
             continue
         base = times[1]
-        tag = f"{kernel}@{backend}" + ("" if mode == "hardware" else f", {mode}")
+        tag = backend + ("" if mode == "hardware" else f", {mode}")
         print(f"{grid} [{tag}]:")
         for nd in sorted(times):
             print(f"  ({nd}, {base / times[nd]:.3f})")

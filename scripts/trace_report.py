@@ -1,19 +1,19 @@
 """Per-op time table from a jax.profiler trace — the gprof flat-profile
 analogue (the reference archived gprof output naming its hot functions,
-/root/reference/profiling/v0_128x128.txt:7-9; this summarises where the
-TPU step's time goes instead of hand-waving from totals).
+profiling/v0_128x128.txt:7-9; this summarises where the GPU step's time
+goes instead of hand-waving from totals).
 
 Two modes:
 
-- ``--capture``: run a short 1024x1024 simulation with the production
-  kernel under profiling.trace (same hook as ``lbm_tpu --trace DIR``),
-  then summarise the capture.
+- ``--capture``: run a short 1024x1024 simulation under profiling.trace
+  (same hook as ``lbm_tpu --trace DIR``), then summarise the capture.
 - ``TRACEDIR`` positional: summarise an existing trace directory (e.g.
   one written by ``python -m lbm_tpu ... --trace DIR``).
 
 The profiler writes Chrome-trace JSON (plugins/profile/*/…trace.json.gz);
-this aggregates complete events by (process, op name) and prints the top
-entries by total duration, writing docs/profiles/trace_ops_1024.json.
+this aggregates complete events on the GPU's ``/device:GPU:n`` planes by
+op name (self time, gprof-style) and prints the top entries, writing the
+table as JSON (``-o``).
 """
 
 from __future__ import annotations
@@ -32,9 +32,9 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def capture(tracedir: str, iters: int) -> None:
     import numpy as np
 
-    import bench
+    from lbm_tpu import jax_cache
 
-    bench._enable_compilation_cache()
+    jax_cache.enable()
     from lbm_tpu.obstacles import generate_obstacles
     from lbm_tpu.params import Params
     from lbm_tpu.runner import run_simulation
@@ -44,7 +44,7 @@ def capture(tracedir: str, iters: int) -> None:
                     omega=np.float32(1.85))
     obstacles = generate_obstacles(params.nx, params.ny)
     # One untraced run first: the traced region should hold steady-state
-    # execution, not the one-off remote program load (docs/PERF.md).
+    # execution, not the one-off program load.
     run_simulation(params, obstacles, kernel="auto")
     res = run_simulation(params, obstacles, kernel="auto",
                          trace_dir=tracedir)
@@ -76,28 +76,35 @@ def summarise(tracedir: str, top: int = 25) -> dict:
                 e.get("args", {}).get("name", "")
             )
 
-    # Self-time accounting: spans on one (pid, tid) track NEST (the
-    # module span covers the while loop covers the kernel call), so
-    # summing raw durations triple-counts the same wall time and
-    # understates every op's device share ~3x (review finding,
-    # confirmed against the committed artifact). A gprof FLAT profile
-    # reports SELF time: each span's duration minus its immediate
-    # children's.
     tracks = defaultdict(list)
     for e in events:
         if e.get("ph") != "X" or "dur" not in e:
             continue
-        # The device's "XLA Modules" lane is an AGGREGATE over the
-        # "XLA Ops" lane (the whole executable as one span) — counting
-        # both double-counts every wall second on a second track that
-        # per-track self-time cannot see (review finding).
+        # A device's "XLA Modules" lane is an AGGREGATE over its ops
+        # (the whole executable as one span): counting it too would
+        # double every second.
         if "Module" in threads.get((e.get("pid"), e.get("tid")), ""):
             continue
         tracks[(e.get("pid"), e.get("tid"))].append(e)
 
     agg = defaultdict(lambda: [0.0, 0.0, 0])  # self_us, total_us, count
+    device_spans = []
     for (pid, _tid), evs in tracks.items():
         proc = procs.get(pid, str(pid))
+        if _is_device(proc):
+            # Kernels on a GPU stream never nest. Spans that overlap are
+            # kernels of one CUDA graph running concurrently, so each
+            # counts in full, and the device's busy time is the union.
+            for e in evs:
+                key = (proc, e.get("name", "?"))
+                agg[key][0] += e["dur"]
+                agg[key][1] += e["dur"]
+                agg[key][2] += 1
+                device_spans.append((e["ts"], e["ts"] + e["dur"]))
+            continue
+        # Host spans NEST (a dispatch span covers its callees), so a
+        # flat profile reports SELF time: each span's duration minus its
+        # immediate children's.
         # Parents first at equal start times (longer duration = outer).
         evs.sort(key=lambda e: (e["ts"], -e["dur"]))
         stack = []  # [event, child_us]
@@ -126,19 +133,35 @@ def summarise(tracedir: str, top: int = 25) -> dict:
          for (p, n), (s, d, c) in agg.items()),
         key=lambda r: -r["self_us"],
     )
-    # The gprof-flat-profile analogue is the DEVICE rows; host rows are
+    # The gprof-flat-profile analogue is the GPU rows; host rows are
     # wrappers (fences, dispatch) and only useful as context.
-    is_dev = lambda r: "TPU" in r["process"] or "/device" in r["process"].lower()
-    dev = [r for r in rows if is_dev(r)]
-    host = [r for r in rows if not is_dev(r)]
-    device_total = sum(r["self_us"] for r in dev)
+    dev = [r for r in rows if _is_device(r["process"])]
+    host = [r for r in rows if not _is_device(r["process"])]
+    busy = _union_us(device_spans)
+    window = (max(b for _, b in device_spans) - min(a for a, _ in device_spans)
+              if device_spans else 0.0)
     for r in dev:
-        r["pct_device"] = (
-            round(100 * r["self_us"] / device_total, 2)
-            if device_total else None
-        )
-    return {"trace_file": path, "device_total_us": round(device_total, 1),
-            "ops": dev[:top] or rows[:top], "host_context": host[:8]}
+        # Concurrent kernels can take the column's sum past 100%.
+        r["pct_busy"] = round(100 * r["total_us"] / busy, 2) if busy else None
+    return {"trace_file": path, "device_busy_us": round(busy, 1),
+            "device_window_us": round(window, 1),
+            "device_idle_share": (round(1 - busy / window, 4)
+                                  if window else None),
+            "ops": dev[:top], "host_context": host[:8]}
+
+
+def _is_device(process: str) -> bool:
+    return process.startswith("/device:GPU:")
+
+
+def _union_us(spans) -> float:
+    """Length of the union of ``(start, end)`` intervals."""
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
 
 
 def main() -> int:
@@ -147,8 +170,7 @@ def main() -> int:
     ap.add_argument("--capture", action="store_true",
                     help="run a traced 1024x1024 simulation first")
     ap.add_argument("--iters", type=int, default=2000)
-    ap.add_argument("-o", "--output",
-                    default="docs/profiles/trace_ops_1024.json")
+    ap.add_argument("-o", "--output", default="trace_ops.json")
     args = ap.parse_args()
 
     if args.capture:
@@ -158,12 +180,15 @@ def main() -> int:
     Path(args.output).parent.mkdir(parents=True, exist_ok=True)
     with open(args.output, "w") as f:
         json.dump(report, f, indent=2)
-    print(f"{'process':<28} {'op':<40} {'self_us':>10} "
-          f"{'total_us':>10} {'count':>7} {'pct':>6}")
+    print(f"device busy {report['device_busy_us']} us of a "
+          f"{report['device_window_us']} us window (idle share "
+          f"{report['device_idle_share']})")
+    print(f"{'process':<28} {'op':<40} {'total_us':>10} {'count':>7} "
+          f"{'avg_us':>9} {'%busy':>6}")
     for r in report["ops"]:
         print(f"{r['process'][:27]:<28} {r['op'][:39]:<40} "
-              f"{r['self_us']:>10.1f} {r['total_us']:>10.1f} "
-              f"{r['count']:>7} {(r.get('pct_device') or 0):>6.2f}")
+              f"{r['total_us']:>10.1f} {r['count']:>7} {r['avg_us']:>9.2f} "
+              f"{(r.get('pct_busy') or 0):>6.2f}")
     return 0
 
 

@@ -1,7 +1,6 @@
 """Test configuration: force an 8-virtual-device CPU platform BEFORE jax
-initialises, so sharded paths are testable without TPU hardware — the
-TPU-native answer to the reference's "multi-node only testable on the real
-cluster" gap (SURVEY.md §4).
+initialises, so sharded paths are testable without a cluster (SURVEY.md
+§4), and point the tests at the repo-owned scenes and goldens.
 """
 
 from lbm_tpu.parallel.decomp import provision_virtual_cpu
@@ -13,24 +12,22 @@ import pathlib
 import numpy as np
 import pytest
 
-REFERENCE = pathlib.Path("/root/reference")
-CHECK = REFERENCE / "check"
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SCENES = REPO / "scenes"
+GOLDENS = REPO / "goldens"
 
 
-def reference_available() -> bool:
-    return CHECK.is_dir()
-
-
-requires_reference = pytest.mark.skipif(
-    not reference_available(), reason="reference golden data not mounted"
-)
+def golden(scene: str) -> dict:
+    """The float64 golden arrays of ``scene`` (goldens/*.f64.npz)."""
+    with np.load(GOLDENS / f"{scene}.final_state.f64.npz") as z:
+        return {k: z[k] for k in ("av_vels", "pressure", "u")}
 
 
 @pytest.fixture(scope="session")
 def params_128():
     from lbm_tpu.params import load_params
 
-    return load_params(REFERENCE / "input_128x128.params")
+    return load_params(SCENES / "input_128x128.params")
 
 
 @pytest.fixture(scope="session")
@@ -38,13 +35,28 @@ def obstacles_128(params_128):
     from lbm_tpu.obstacles import load_obstacles
 
     return load_obstacles(
-        REFERENCE / "obstacles_128x128.dat", params_128.nx, params_128.ny
+        SCENES / "obstacles_128x128.dat", params_128.nx, params_128.ny
     )
 
 
-@pytest.fixture(scope="session")
-def golden_av_vels_128():
-    return np.loadtxt(CHECK / "128x128.av_vels.dat", usecols=[1])
+@pytest.fixture
+def gpu():
+    """Skip unless a GPU is present. Asked of a child process that is not
+    pinned to the CPU, since this test process is (above)."""
+    import os
+    import subprocess
+    import sys
+
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("JAX_PLATFORMS", "XLA_FLAGS")}
+    res = subprocess.run(
+        [sys.executable, "-c",
+         "import jax; print(jax.devices()[0].platform)"],
+        capture_output=True, text=True, env=env, timeout=300,
+    )
+    if res.stdout.strip() != "gpu":
+        pytest.skip("needs a GPU (JAX found none)")
+    return env
 
 
 _SESSION_T0 = None

@@ -38,7 +38,7 @@ def test_entry_returns_jittable_step_and_args():
 def test_dryrun_multichip_subprocess():
     # dryrun_multichip self-provisions its own virtual mesh in a
     # subprocess, so it is safe to invoke from the 8-device suite
-    # process; 2 devices keeps the eight sharding configs cheap.
+    # process; 2 devices keeps the four sharding configs cheap.
     res = subprocess.run(
         [sys.executable, "-c",
          "import __graft_entry__ as g; g.dryrun_multichip(2)"],

@@ -7,7 +7,7 @@ from lbm_tpu import io as lio
 from lbm_tpu.params import Params
 from lbm_tpu.state import initial_state_np
 
-from conftest import CHECK, requires_reference
+from conftest import GOLDENS, golden
 
 
 def test_av_vels_format(tmp_path):
@@ -59,18 +59,45 @@ def test_fields_match_observables():
     np.testing.assert_allclose(u, np.hypot(u_x, u_y), rtol=1e-5)
 
 
-@requires_reference
-def test_compare_golden_self():
+def _golden_dat_files(tmp_path, scene, scale=1.0):
+    """Write a golden's av_vels and pressure as the reference's .dat
+    files (other final_state columns zero), pressure scaled by
+    ``scale``."""
+    g = golden(scene)
+    nx, ny = (int(v) for v in scene.split("x"))
+    av = tmp_path / "av.dat"
+    fs = tmp_path / "fs.dat"
+    av.write_text("".join(f"{t}:\t{v:.12E}\n"
+                          for t, v in enumerate(g["av_vels"])))
+    jj, ii = np.divmod(np.arange(nx * ny), nx)
+    fs.write_text("".join(
+        f"{i} {j} 0 0 0 {p * scale:.12E} 0\n"
+        for i, j, p in zip(ii, jj, g["pressure"])))
+    return av, fs
+
+
+def test_compare_golden_self(tmp_path):
     """The comparator passes when ref == sim (identity check)."""
-    res = lio.compare_golden(
-        CHECK / "128x128.av_vels.dat",
-        CHECK / "128x128.final_state.dat",
-        CHECK / "128x128.av_vels.dat",
-        CHECK / "128x128.final_state.dat",
-    )
+    av, fs = _golden_dat_files(tmp_path, "256x256")
+    res = lio.compare_golden(av, fs, av, fs)
     assert res.passed
     assert res.av_vels.total == 0.0
     assert res.final_state.total == 0.0
+
+
+@pytest.mark.parametrize("scale,passed", [(1.0, True), (1.002, True),
+                                          (1.02, False)])
+def test_compare_golden_npz(tmp_path, scale, passed):
+    """compare_golden_npz applies check.py's formula to the .dat files
+    against the float64 golden arrays: 0.2% off passes the 1% gate, 2%
+    off fails it, and the max %diff it reports is the offset."""
+    av, fs = _golden_dat_files(tmp_path, "256x256", scale=scale)
+    res = lio.compare_golden_npz(
+        av, fs, GOLDENS / "256x256.final_state.f64.npz")
+    assert res.passed is passed
+    assert abs(res.av_vels.max_diff_pcnt) < 1e-9
+    want = 100 * (1 - scale) / scale
+    assert abs(res.final_state.max_diff_pcnt - want) < 1e-6
 
 
 def test_compare_golden_detects_mismatch(tmp_path):

@@ -12,12 +12,11 @@ from lbm_tpu.obstacles import (
 )
 from lbm_tpu.state import D2Q9, initial_state
 
-from conftest import REFERENCE, requires_reference
+from conftest import SCENES
 
 
-@requires_reference
 def test_load_params_128():
-    p = load_params(REFERENCE / "input_128x128.params")
+    p = load_params(SCENES / "input_128x128.params")
     assert (p.nx, p.ny, p.max_iters, p.reynolds_dim) == (128, 128, 40000, 10)
     assert p.density == np.float32(0.1)
     assert p.accel == np.float32(0.005)
@@ -41,9 +40,8 @@ def test_params_validation():
                density=0.1, accel=0.005, omega=1.85)
 
 
-@requires_reference
 def test_load_obstacles_128():
-    mask = load_obstacles(REFERENCE / "obstacles_128x128.dat", 128, 128)
+    mask = load_obstacles(SCENES / "obstacles_128x128.dat", 128, 128)
     # File has 512 lines with 4 duplicate corners -> 508 unique blocked cells.
     assert int(mask.sum()) == 508
     assert mask[0].all() and mask[-1].all()
@@ -67,10 +65,9 @@ def test_obstacle_validation(tmp_path):
         load_obstacles(f, 8, 8)
 
 
-@requires_reference
 def test_generator_matches_reference_mask():
     # obstacles_128x128.dat is the generator's boundary-walls output.
-    ref = load_obstacles(REFERENCE / "obstacles_128x128.dat", 128, 128)
+    ref = load_obstacles(SCENES / "obstacles_128x128.dat", 128, 128)
     gen = generate_obstacles(128, 128)
     np.testing.assert_array_equal(ref, gen)
 
@@ -107,34 +104,44 @@ def test_d2q9_constants():
 
 
 def test_compilation_cache_flag(tmp_path):
-    """--compilation-cache populates a persistent XLA cache dir so repeat
-    scene runs skip recompilation (production QoL over the reference's
-    ahead-of-time C build)."""
+    """--compilation-cache, or else JAX_COMPILATION_CACHE_DIR, populates a
+    persistent XLA cache dir so repeat scene runs skip recompilation
+    (production QoL over the reference's ahead-of-time C build)."""
     import subprocess
     import sys
     from pathlib import Path
 
     repo = Path(__file__).resolve().parent.parent
     cache = tmp_path / "xla_cache"
-    code = (
-        "import jax; jax.config.update('jax_platforms','cpu')\n"
-        "from lbm_tpu.cli import main\n"
-        f"main(['/root/reference/input_128x128.params',"
-        f"'/root/reference/obstacles_128x128.dat','--kernel','reference',"
-        f"'--iters','100','--compilation-cache',r'{cache}',"
-        f"'--av-vels-file',r'{tmp_path / 'av.dat'}',"
-        f"'--final-state-file',r'{tmp_path / 'fs.dat'}'])\n"
-    )
-    res = subprocess.run(
-        [sys.executable, "-c", code], capture_output=True, text=True,
-        cwd=repo,
-        env={"PYTHONPATH": str(repo), "PATH": "/usr/bin:/bin",
-             "JAX_PLATFORMS": "cpu", "HOME": "/root"},
-    )
-    assert res.returncode == 0, res.stderr[-2000:]
+    env_cache = tmp_path / "env_cache"
+
+    def run(extra_args, extra_env):
+        code = (
+            "import jax; jax.config.update('jax_platforms','cpu')\n"
+            "from lbm_tpu.cli import main\n"
+            f"main([r'{SCENES / 'input_128x128.params'}',"
+            f"r'{SCENES / 'obstacles_128x128.dat'}',"
+            f"'--iters','100',*{extra_args!r},"
+            f"'--av-vels-file',r'{tmp_path / 'av.dat'}',"
+            f"'--final-state-file',r'{tmp_path / 'fs.dat'}'])\n"
+        )
+        res = subprocess.run(
+            [sys.executable, "-c", code], capture_output=True, text=True,
+            cwd=repo,
+            env={"PYTHONPATH": str(repo), "PATH": "/usr/bin:/bin",
+                 "JAX_PLATFORMS": "cpu", "HOME": str(tmp_path),
+                 **extra_env},
+        )
+        assert res.returncode == 0, res.stderr[-2000:]
+
+    # The explicit flag.
+    run(["--compilation-cache", str(cache)], {})
     assert cache.is_dir() and any(cache.iterdir()), (
         "compilation cache directory should be populated"
     )
+    # JAX_COMPILATION_CACHE_DIR, with no flag: the cache goes there.
+    run([], {"JAX_COMPILATION_CACHE_DIR": str(env_cache)})
+    assert env_cache.is_dir() and any(env_cache.iterdir())
 
 
 def test_obstacle_parser_accepts_token_stream(tmp_path):
@@ -193,3 +200,44 @@ def test_av_velocity_coerces_integer_masks():
     a = float(av_velocity(cells, mask_bool))
     b = float(av_velocity(cells, mask_int))
     assert a == b and np.isfinite(a)
+
+
+def test_compilation_cache_dir_resolution(monkeypatch):
+    """The flag wins, then JAX_COMPILATION_CACHE_DIR, then the fixed
+    <checkout>/.jax_cache derived from the package's location."""
+    from lbm_tpu import jax_cache
+
+    from conftest import REPO
+
+    assert jax_cache.cache_dir("/x", environ={}) == "/x"
+    assert jax_cache.cache_dir(
+        None, environ={"JAX_COMPILATION_CACHE_DIR": "/env"}) == "/env"
+    assert jax_cache.cache_dir(None, environ={}) == str(REPO / ".jax_cache")
+    assert jax_cache.cache_dir(
+        "/x", environ={"JAX_COMPILATION_CACHE_DIR": "/env"}) == "/x"
+
+
+@pytest.mark.parametrize("scene,iters,accel", [
+    ("128x128", 40000, 0.005),
+    ("128x256", 40000, 0.005),
+    ("256x256", 80000, 0.005),
+    ("1024x1024", 20000, 0.01),
+])
+def test_repo_scene_files(scene, iters, accel):
+    """The repo-owned scenes: the reference's parameter sets, and masks
+    of boundary walls (plus, at 1024x1024, the interior wall at x=341
+    that the golden's u == 0 cells show)."""
+    nx, ny = (int(v) for v in scene.split("x"))
+    p = load_params(SCENES / f"input_{scene}.params")
+    assert (p.nx, p.ny, p.max_iters, p.reynolds_dim) == (nx, ny, iters, 10)
+    assert (p.density, p.accel, p.omega) == (
+        np.float32(0.1), np.float32(accel), np.float32(1.85))
+    mask = load_obstacles(SCENES / f"obstacles_{scene}.dat", nx, ny)
+    want = generate_obstacles(nx, ny)
+    if scene == "1024x1024":
+        want[:, 341] = True
+        from conftest import golden
+
+        u = golden(scene)["u"].reshape(ny, nx)
+        np.testing.assert_array_equal(mask, u == 0)
+    np.testing.assert_array_equal(mask, want)
